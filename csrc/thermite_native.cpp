@@ -1,4 +1,4 @@
-// thermite-tpu native host engine.
+// thermite native host engine.
 //
 // Covers the host-side hot paths that the reference implements in Rust
 // with native-speed crates:
@@ -7,13 +7,13 @@
 //   construction via libdivsufsort, src/index.rs:104): re-designed as a
 //   k-mer anchor table + maximal extension + supermaximal-envelope
 //   selection, byte-identical in output to the Python engine in
-//   thermite_tpu/seed/smem.py (same algorithm, same canonical order).
+//   thermite/seed/smem.py (same algorithm, same canonical order).
 // * The per-read batch pipeline's host stages (reference
 //   src/aligner.rs:123-314 rules): chunk task building (seed -> genome
 //   window + transcript-candidate extension problems as device gather
 //   offsets) and post-kernel arbitration (genome-vs-transcriptome
 //   choice, thresholds, overlap filter, primary selection) — exact
-//   ports of the Python implementations in thermite_tpu/align/batch.py,
+//   ports of the Python implementations in thermite/align/batch.py,
 //   which remain as the fallback and the parity referee.
 //
 // Exposed as a plain C ABI for ctypes (no pybind11 in this image).
@@ -1722,7 +1722,7 @@ class SeedInterleaver {
 
 // ---------------------------------------------------------------------------
 // Batch pipeline host stages: chunk building + arbitration.
-// Exact ports of thermite_tpu/align/batch.py (_build_chunk /
+// Exact ports of thermite/align/batch.py (_build_chunk /
 // _arbitrate_chunk), which stay as the Python fallback + parity referee.
 // ---------------------------------------------------------------------------
 
@@ -1784,13 +1784,13 @@ enum {
   S_READ = 0, S_TASK, S_TYPE, S_GENE, S_REFID, S_SCORE,
   S_YS, S_YE, S_XS, S_XE, S_PRIMARY, S_NCOL
 };
-// aln types (match thermite_tpu/align/types.py EXONIC/INTRONIC/INTERGENIC)
+// aln types (match thermite/align/types.py EXONIC/INTRONIC/INTERGENIC)
 enum { A_EXONIC = 0, A_INTRONIC = 1, A_INTERGENIC = 2 };
 
 struct Chunk {
   int64_t n_reads = 0;  // consumed
   std::vector<int64_t> read_len, read_minscore;
-  std::vector<int32_t> meta;         // (P, 9) — swg_pallas.META_COLS
+  std::vector<int32_t> meta;         // (P, 9) — ops/layout.py META_COLS
   std::vector<int64_t> tasks;        // (T, T_NCOL)
   std::vector<int64_t> read_task_off;  // (n_reads+1,)
   std::vector<int64_t> selected;     // (S, S_NCOL)
@@ -1803,7 +1803,7 @@ struct Chunk {
   std::vector<uint8_t> emit;                  // serialized SAM/BAM records
   // paired-end state (thermite_chunk_pair): reads are interleaved
   // R1/R2, pair p = reads (2p, 2p+1).  Per-READ decision of the FR
-  // pairing (mirrors thermite_tpu/align/paired.py, the parity referee).
+  // pairing (mirrors thermite/align/paired.py, the parity referee).
   bool paired = false;
   std::vector<int64_t> sel_off;    // (n_reads+1) selected-row ranges
   std::vector<int64_t> p_chosen;   // per read: chosen selected row, -1 none
@@ -1820,7 +1820,7 @@ struct Chunk {
 };
 
 // zero-byte padding the nibble-packed device text carries at both ends
-// (MUST match thermite_tpu.ops.swg_pallas._WPAD)
+// (MUST match thermite.ops.layout._WPAD)
 constexpr int64_t kWpad = 512;
 
 int64_t add_problem(Chunk* ch, int64_t yb, int64_t yd, int64_t yl, int64_t xb,
@@ -2647,7 +2647,7 @@ const int64_t* thermite_chunk_winners(void* ch) {
 
 // ---------------------------------------------------------------------------
 // Scalar banded SWG extension (exact mirror of the Python oracle
-// thermite_tpu/ops/swg_ref.py, itself the cleaned-up semantic of
+// thermite/ops/swg_ref.py, itself the cleaned-up semantic of
 // reference src/swg.rs:31-240): anchored at (0,0), free end at the
 // global max cell, banded, affine gaps, X-drop early termination,
 // diag > del > ins tie priority, strictly-greater max updates.
@@ -2698,7 +2698,7 @@ int64_t pack_walk(const SwgScratch& S, int64_t w, int64_t band, int64_t mi,
 //
 // When `cert_out` is non-null, also evaluates the band-exactness
 // certificate (same soundness argument as the device kernel,
-// thermite_tpu/ops/swg_pallas.py stream-kernel docstring): *cert_out
+// thermite/ops/stream.py docstring): *cert_out
 // is set to 1 iff the SAME problem at ANY wider band (ylen re-clamped
 // accordingly, same x_drop) provably yields a bit-identical row.
 // Tracked per column j: E(j) = min(j, xlen)*M + o + (band+1)*e bounds
@@ -2943,7 +2943,7 @@ int64_t thermite_swg_stream_adaptive(const uint8_t* x, int64_t xlen,
 // every nontrivial problem -> arbitrate -> finalize, one thread, no
 // device.  This is the honest "thermite-equivalent single core"
 // baseline (the reference is compiled Rust at opt-level 3,
-// /root/reference/Cargo.toml:33-41; comparing the TPU pipeline against
+// reference Cargo.toml:33-41; comparing the device pipeline against
 // a Python oracle would flatter it).  Returns a finalized Chunk handle
 // ready for thermite_chunk_emit / the standard getters, or nullptr on
 // internal error.  `consumed` reads back via thermite_chunk_n_reads.
@@ -3431,7 +3431,7 @@ extern "C" {
 // ~6 us/read): uppercase each read into the zero-padded (rows, rpad)
 // block, record lengths, and nibble-pack the whole block with the READ
 // code LUT (A/C/G/T/N = 1..5, pad 0 -> 0, anything else 15 — matches
-// ops/swg_pallas._READ_NIB_LUT / _read_codes bit for bit).  The nib
+// ops/layout._READ_NIB_LUT bit for bit).  The nib
 // layout mirrors pack_reads_nib_host: wpad zero BYTES before the
 // block, 8 codes per int32 word, little-endian nibbles.
 void thermite_prep_reads(const uint8_t* concat, const int64_t* offs,
@@ -3453,7 +3453,7 @@ void thermite_prep_reads(const uint8_t* concat, const int64_t* offs,
 }
 
 // Nibble-pack a read block for upload (the C twin of
-// ops/swg_pallas.pack_reads_nib_host; bit-identical by test).  Byte k
+// ops/layout.pack_reads_nib_host; bit-identical by test).  Byte k
 // of the padded stream (wpad zeros + block + trailing zeros) -> word
 // k/8, nibble k%8, READ code LUT.
 void thermite_nib_pack_reads(const uint8_t* block, int64_t L, int64_t wpad,
@@ -3493,7 +3493,7 @@ void thermite_engine_set_strings(
 }
 
 // FR pairing decision for an interleaved R1/R2 chunk (mirrors
-// thermite_tpu/align/paired.py select_pair/template_len/pair_records,
+// thermite/align/paired.py select_pair/template_len/pair_records,
 // the byte-identity referee; see that module for the pairing rules).
 // `rescue` != 0 marks every pair with exactly ONE unmapped mate for
 // the Python mate-rescue + splice path (rescue re-seeds the lost mate

@@ -1,7 +1,7 @@
 /* C-level construction of the batch pipeline's result object tree.
  *
  * `align_batch` returns real Python objects (GenomeAlignment ->
- * Alignment -> RunOps, thermite_tpu/align/types.py — the observable
+ * Alignment -> RunOps, thermite/align/types.py — the observable
  * structure of the reference's types, reference src/txome.rs:54-69 /
  * rust-bio Alignment).  Building ~half a million small slotted
  * dataclass instances per benchmark batch through their Python

@@ -15,7 +15,7 @@ import numpy as np
 
 sys.path.insert(0, __file__.rsplit("/", 2)[0])
 
-from thermite_tpu.io.fastx import parse_fastx, revcomp  # noqa: E402
+from thermite.io.fastx import parse_fastx, revcomp  # noqa: E402
 
 
 def main():

@@ -84,3 +84,13 @@ def write_fixture(tmp_path):
     gtf.write_text(GTF)
     fq.write_text(FASTQ)
     return str(ref), str(gtf), str(fq)
+
+
+def small_genome_index(tmp_dir):
+    """Index of the seeded chrM stand-in (testing/synth.py
+    write_small_genome): 16.5 kb, gene-dense, both strands."""
+    from thermite.index.build import Index
+    from thermite.testing.synth import write_small_genome
+
+    fasta, gtf = write_small_genome(str(tmp_dir))
+    return Index.create_from_files(fasta, gtf)

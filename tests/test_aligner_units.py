@@ -8,16 +8,16 @@ exact expected structures so a behaviour drift fails loudly at the
 unit level, like upstream CI would.
 """
 
-from thermite_tpu.align.driver import filter_overlapping
-from thermite_tpu.align.extend import extend_left_right
-from thermite_tpu.align.types import (
+from thermite.align.driver import filter_overlapping
+from thermite.align.extend import extend_left_right
+from thermite.align.types import (
     Alignment,
     GenomeAlignment,
     INTERGENIC,
     Mem,
     xclip,
 )
-from thermite_tpu.ops.swg_ref import SwgExtend
+from thermite.ops.swg_ref import SwgExtend
 
 
 def _ga(score, ystart, yend, strand):

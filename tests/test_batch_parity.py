@@ -1,5 +1,6 @@
-"""End-to-end parity: batched TPU pipeline (xla backend on CPU) vs the
-sequential oracle, on the mini fixture and on synthetic chrM reads.
+"""End-to-end parity: the batched pipeline (stream route and two-pass
+xla test path on CPU) vs the sequential oracle, on the mini fixture and
+on reads from the synthetic small gene-dense genome (the chrM stand-in).
 
 This is the key equivalence test for the batching transformation
 (fixed band vs the reference's sequential narrowing — see
@@ -11,12 +12,12 @@ import pytest
 
 from fixtures import READS, write_fixture
 
-from thermite_tpu.align.batch import BatchAligner
-from thermite_tpu.align.driver import AlignOpts, OracleAligner
-from thermite_tpu.index.build import Index
-from thermite_tpu.index.span_lift import lift_tx_span_to_gx
-from thermite_tpu.index.txome import Exon, Tx, lift_tx_to_gx
-from thermite_tpu.io.fastx import revcomp
+from thermite.align.batch import BatchAligner
+from thermite.align.driver import AlignOpts, OracleAligner
+from thermite.index.build import Index
+from thermite.index.span_lift import lift_tx_span_to_gx
+from thermite.index.txome import Exon, Tx, lift_tx_to_gx
+from thermite.io.fastx import revcomp
 
 
 @pytest.fixture(scope="module")
@@ -25,13 +26,9 @@ def index(tmp_path_factory):
     return Index.create_from_files(ref, gtf)
 
 
-def _assert_parity(index, reads, opts, use_native=None, backend="xla",
-                   interpret=False):
+def _assert_parity(index, reads, opts, use_native=None, backend="xla"):
     oracle = OracleAligner(index, opts)
-    batch = BatchAligner(
-        index, opts, backend=backend, use_native=use_native,
-        interpret=interpret,
-    )
+    batch = BatchAligner(index, opts, backend=backend, use_native=use_native)
     got_all = batch.align_batch(reads)
     for read, got in zip(reads, got_all):
         want = oracle.align_read(read)
@@ -51,21 +48,20 @@ def test_fixture_parity(index, intron_mode, use_native):
 
 @pytest.mark.parametrize("intron_mode", [False, True])
 def test_fixture_parity_pallas_native(index, intron_mode):
-    """Full TPU-production path on CPU: native C++ build/arbitrate/
-    finalize + Pallas kernels in interpret mode."""
+    """Full production path on CPU: native C++ build/arbitrate/
+    finalize + the plain-XLA stream kernel."""
     opts = AlignOpts(min_seed_len=3, min_aln_score=0, intron_mode=intron_mode)
     _assert_parity(
         index, [seq.encode() for _, seq in READS], opts,
-        backend="pallas", interpret=True,
+        backend="stream",
     )
 
 
 @pytest.fixture(scope="module")
-def chrm_index():
-    return Index.create_from_files(
-        "/root/reference/data/GRCh38-2020-A-chrM.fasta",
-        "/root/reference/data/GRCh38-2020-A-chrM.gtf",
-    )
+def chrm_index(tmp_path_factory):
+    from fixtures import small_genome_index
+
+    return small_genome_index(tmp_path_factory.mktemp("synM"))
 
 
 def test_chrm_parity(chrm_index):
@@ -127,15 +123,14 @@ def test_chrm_parity_indels_and_edge_reads(chrm_index):
         min_seed_len=20, min_aln_score_percent=0.0, min_aln_score=30, intron_mode=True
     )
     _assert_parity(idx, reads, opts)
-    # and through the full native + Pallas-interpret production path
-    # (subset: interpret mode is slow)
+    # and through the full native + stream-kernel production path
     _assert_parity(
-        idx, reads[:12] + reads[-6:], opts, backend="pallas", interpret=True
+        idx, reads[:12] + reads[-6:], opts, backend="stream"
     )
 
 
 def test_span_lift_matches_full_lift():
-    from thermite_tpu.align.types import Alignment
+    from thermite.align.types import Alignment
 
     tx = Tx(
         id="", chrom="", strand=True,
@@ -166,8 +161,8 @@ def test_span_lift_matches_full_lift():
 def test_chrm_parity_variable_length_reads(chrm_index):
     """Mixed 40-150 bp reads grow the band (W), column count (YMAX) and
     walk bound (SMAX) buckets; parity must hold across the growth.
-    (The TPU run of this mix also guards the adaptive traceback block
-    size that keeps the dirs scratch within VMEM.)"""
+    (The narrow band keeps the device kernel's shapes fixed while the
+    original-band walks grow the host rows.)"""
     idx = chrm_index
     rng = np.random.default_rng(31)
     chrM = idx.seq[idx.refs[0].start_idx : idx.refs[0].end_idx - 1]
@@ -204,4 +199,4 @@ def test_no_annotation_index_parity(tmp_path):
     opts = AlignOpts(min_seed_len=3, min_aln_score=0, intron_mode=True)
     reads = [seq.encode() for _, seq in READS]
     _assert_parity(idx, reads, opts)
-    _assert_parity(idx, reads, opts, backend="pallas", interpret=True)
+    _assert_parity(idx, reads, opts, backend="stream")

@@ -8,10 +8,10 @@ import pytest
 
 from fixtures import write_fixture
 
-from thermite_tpu.cli import main as cli_main
-from thermite_tpu.io.bam import read_bam
-from thermite_tpu.testing.alignment_metrics import compare, to_markdown
-from thermite_tpu.wrapper import ThermiteAligner
+from thermite.cli import main as cli_main
+from thermite.io.bam import read_bam
+from thermite.testing.alignment_metrics import compare, to_markdown
+from thermite.wrapper import ThermiteAligner
 
 
 @pytest.fixture(scope="module")
@@ -94,7 +94,7 @@ def test_wrapper(ws):
     assert ta.est_mem(idx) > 0
     assert ta.header().startswith("@SQ")
     # defaults: k=20 -> fixture reads unmapped; switch to fixture opts
-    from thermite_tpu.align.driver import AlignOpts
+    from thermite.align.driver import AlignOpts
 
     ta.set_opts(AlignOpts(min_seed_len=3, min_aln_score=0))
     recs = ta.align_read(b"exact_exonic", b"ATTACAG", b"9999999")
@@ -150,7 +150,7 @@ def test_bgzf_blocks_conformant(ws):
         off += bsize + 1
         blocks += 1
     assert off == len(data), "block chain does not tile the file"
-    from thermite_tpu.io.bam import _BGZF_EOF
+    from thermite.io.bam import _BGZF_EOF
 
     assert data.endswith(_BGZF_EOF), "missing BGZF EOF marker"
     assert blocks >= 2
@@ -159,7 +159,7 @@ def test_bgzf_blocks_conformant(ws):
 def test_index_artifact_path_normalization(ws, tmp_path):
     """save/load agree on the .npz artifact name regardless of the
     extension the caller passes (np.savez always appends .npz)."""
-    from thermite_tpu.index.build import Index
+    from thermite.index.build import Index
 
     d, idx_path, fq = ws
     idx = Index.load(idx_path)
@@ -173,7 +173,7 @@ def test_index_artifact_path_normalization(ws, tmp_path):
 def test_gtf_unknown_chromosome_skipped(tmp_path, capfd):
     """Annotations on chromosomes absent from the FASTA are skipped
     with a warning instead of crashing (e.g. full GTF vs reduced FASTA)."""
-    from thermite_tpu.index.build import Index
+    from thermite.index.build import Index
 
     fa = tmp_path / "r.fasta"
     fa.write_text(">chrA\nACGTACGTACGTACGTACGT\n")

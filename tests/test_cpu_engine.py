@@ -5,10 +5,10 @@ import pytest
 
 from fixtures import READS, write_fixture
 
-from thermite_tpu.align.batch import BatchAligner
-from thermite_tpu.align.cpu import CppAligner
-from thermite_tpu.align.driver import AlignOpts
-from thermite_tpu.index.build import Index
+from thermite.align.batch import BatchAligner
+from thermite.align.cpu import CppAligner
+from thermite.align.driver import AlignOpts
+from thermite.index.build import Index
 
 
 @pytest.fixture(scope="module")
@@ -39,7 +39,7 @@ def test_cpu_engine_matches_batch_emit(index, recs, fmt_bam):
         pytest.skip("native library unavailable")
     got = cpp.align_records(recs, fmt_bam)
 
-    batch = BatchAligner(index, opts, backend="pallas", interpret=True)
+    batch = BatchAligner(index, opts, backend="stream")
     want = batch.align_batch_emit(recs, fmt_bam)
     assert got == want
 

@@ -11,9 +11,9 @@ import pytest
 
 from fixtures import write_fixture
 
-from thermite_tpu.align.driver import AlignOpts, OracleAligner
-from thermite_tpu.index.build import Index
-from thermite_tpu.io.sam import aln_to_sam_record
+from thermite.align.driver import AlignOpts, OracleAligner
+from thermite.index.build import Index
+from thermite.io.sam import aln_to_sam_record
 
 
 @pytest.fixture(scope="module")

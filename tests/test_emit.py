@@ -2,9 +2,9 @@
 
 The emitter (csrc thermite_chunk_emit) serializes SAM text / BAM record
 blobs straight from the C++ finalize runs; the Python writers are the
-parity referees.  Runs the pallas pipeline in interpret mode on CPU so
+parity referees.  Runs the stream route (plain-XLA kernel) on CPU so
 the exact production path (single-pass stream + native finalize + C++
-emit) is exercised without a TPU.
+emit) is exercised without a GPU.
 """
 
 import numpy as np
@@ -12,9 +12,9 @@ import pytest
 
 from fixtures import READS, write_fixture
 
-from thermite_tpu.align.batch import BatchAligner, _serialize_records
-from thermite_tpu.align.driver import AlignOpts
-from thermite_tpu.index.build import Index
+from thermite.align.batch import BatchAligner, _serialize_records
+from thermite.align.driver import AlignOpts
+from thermite.index.build import Index
 
 
 @pytest.fixture(scope="module")
@@ -42,14 +42,14 @@ def test_emit_matches_python_writers(fixture_index, recs, fmt_bam):
         intron_mode=True,
     )
     emitter = BatchAligner(
-        fixture_index, opts, backend="pallas", interpret=True
+        fixture_index, opts, backend="stream"
     )
     if not emitter.can_emit():
         pytest.skip("native engine unavailable")
     raw = emitter.align_batch_emit(recs, fmt_bam)
 
     objs = BatchAligner(
-        fixture_index, opts, backend="pallas", interpret=True
+        fixture_index, opts, backend="stream"
     )
     results = objs.align_batch([r[1] for r in recs])
     want = _serialize_records(fixture_index, recs, results, fmt_bam)
@@ -59,9 +59,9 @@ def test_emit_matches_python_writers(fixture_index, recs, fmt_bam):
 def test_emit_cli_roundtrip(fixture_index, recs, tmp_path):
     """Emitted BAM records parse back through the from-spec reader with
     the expected fields."""
-    from thermite_tpu.align.run import FORMAT_BAM, align_reads_from_file
-    from thermite_tpu.io.bam import read_bam
-    from thermite_tpu.testing.synth import write_fastq
+    from thermite.align.run import FORMAT_BAM, align_reads_from_file
+    from thermite.io.bam import read_bam
+    from thermite.testing.synth import write_fastq
 
     fq = str(tmp_path / "r.fastq")
     write_fastq([(n.decode(), s) for n, s, _ in recs[:6]], fq)

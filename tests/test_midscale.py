@@ -10,10 +10,10 @@ batch pipeline output must equal the oracle read-for-read.
 import numpy as np
 import pytest
 
-from thermite_tpu.align.batch import BatchAligner
-from thermite_tpu.align.driver import AlignOpts, OracleAligner
-from thermite_tpu.index.build import Index
-from thermite_tpu.io.fastx import revcomp
+from thermite.align.batch import BatchAligner
+from thermite.align.driver import AlignOpts, OracleAligner
+from thermite.index.build import Index
+from thermite.io.fastx import revcomp
 
 
 @pytest.fixture(scope="module")

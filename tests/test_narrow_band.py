@@ -3,7 +3,7 @@ exactness certificate, and end-to-end narrow-vs-wide identity.
 
 The production pipeline submits extension problems at a capped band
 (``BatchAligner.narrow_band``) and relies on the stream kernel's
-per-problem certificate (``ops/swg_pallas.py`` docstring) to prove the
+per-problem certificate (``ops/stream.py`` docstring) to prove the
 result identical to the full-band run; failures are host-patched by the
 C++ scalar oracle (csrc/thermite_native.cpp swg_stream_row, an exact
 mirror of ops/swg_ref.py / reference src/swg.rs:31-240).
@@ -14,10 +14,10 @@ import ctypes
 import numpy as np
 import pytest
 
-from thermite_tpu.align import native_batch
-from thermite_tpu.ops.runs import decode_stream_batch
-from thermite_tpu.ops.swg_ref import SwgExtend
-from thermite_tpu.seed.native import _try_load
+from thermite.align import native_batch
+from thermite.ops.runs import decode_stream_batch
+from thermite.ops.swg_ref import SwgExtend
+from thermite.seed.native import _try_load
 
 _i32p = ctypes.POINTER(ctypes.c_int32)
 _i64p = ctypes.POINTER(ctypes.c_int64)
@@ -132,8 +132,8 @@ def test_cpp_adaptive_matches_full():
 def _mk_problems(rng, n, wide, with_indels=True):
     """Synthetic text/reads/meta at ``wide`` band; some reads carry
     >narrow-band indels so certificate failures actually occur."""
-    from thermite_tpu.ops.swg_pallas import (
-        meta_row, nib_lw, pack_text_nib_host,
+    from thermite.ops.layout import (
+        meta_row, nib_lw, pack_reads_nib_host, pack_text_nib_host,
     )
 
     text = rng.choice(np.frombuffer(b"ACGT", np.uint8), 200_000)
@@ -163,11 +163,11 @@ def _mk_problems(rng, n, wide, with_indels=True):
         d = 1 if rng.random() < 0.5 else -1
         ybase = int(src[ri]) + q if d == 1 else int(src[ri]) + q + xlen
         meta[i] = meta_row(ybase, d, ylen, ri * RPAD + q, d, xlen, wide, wide)
-    return text, words, lw, reads, meta
+    return text, words, lw, reads, pack_reads_nib_host(reads.reshape(-1)), meta
 
 
 def _patch(lib, text, reads, meta_orig, rows, pids, smax):
-    from thermite_tpu.ops.swg_pallas import _WPAD
+    from thermite.ops.layout import _WPAD
 
     pids = np.ascontiguousarray(pids, np.int64)
     rc = lib.thermite_swg_patch_rows(
@@ -180,26 +180,33 @@ def _patch(lib, text, reads, meta_orig, rows, pids, smax):
     assert rc == 0
 
 
-def test_narrow_cert_patch_equals_wide():
+def _stream_rows(kern, words, lw, nib, meta):
+    """Fused [hdr expanded to 4 cols | streams] host rows."""
+    from thermite.ops.layout import expand_stream_hdr
+
+    hdr, streams = (np.asarray(v) for v in kern(words, lw, nib, meta))
+    return np.concatenate([expand_stream_hdr(hdr), streams], axis=1)
+
+
+@pytest.mark.parametrize("seed", [7, 11])
+def test_narrow_cert_patch_equals_wide(seed):
     """Narrow-band stream kernel + certificate + C++ patch reproduces
-    the wide-band kernel output bit-exactly (general kernel, interpret
-    mode), including problems with out-of-narrow-band indels."""
-    from thermite_tpu.ops.swg_pallas import (
-        get_stream_traceback_gather_kernel,
-    )
+    the wide-band kernel output bit-exactly, including problems with
+    out-of-narrow-band indels."""
+    from thermite.ops.stream import get_stream_kernel, width_for_band
 
     lib = _lib()
-    rng = np.random.default_rng(7)
+    rng = np.random.default_rng(seed)
     WIDE, NARROW, N, SMAX = 60, 15, 32, 384
-    text, words, lw, reads, meta_w = _mk_problems(rng, N, WIDE)
+    text, words, lw, reads, nib, meta_w = _mk_problems(rng, N, WIDE)
     meta_n = meta_w.copy()
     np.minimum(meta_n[:, 7], NARROW, out=meta_n[:, 7])
     np.minimum(meta_n[:, 3], meta_n[:, 6] + meta_n[:, 7] + 1, out=meta_n[:, 3])
 
-    kw = get_stream_traceback_gather_kernel(8, 96, 192, 128, True, SMAX=SMAX)
-    kn = get_stream_traceback_gather_kernel(8, 96, 128, 128, True, SMAX=SMAX)
-    out_w = np.asarray(kw(words, lw, reads, meta_w)).copy()
-    out_n = np.asarray(kn(words, lw, reads, meta_n)).copy()
+    kw = get_stream_kernel(96, 192, width_for_band(WIDE), SMAX)
+    kn = get_stream_kernel(96, 128, width_for_band(NARROW), SMAX)
+    out_w = _stream_rows(kw, words, lw, nib, meta_w)
+    out_n = _stream_rows(kn, words, lw, nib, meta_n)
 
     bad_n = np.flatnonzero(out_n[:, 3] < 0)
     # indel reads must actually exercise the patch path
@@ -213,52 +220,22 @@ def test_narrow_cert_patch_equals_wide():
     assert (out_n == out_w).all()
 
 
-def test_narrow_cert_patch_equals_wide_packed():
-    """Same identity through the lane-packed kernel."""
-    from thermite_tpu.ops.swg_pallas import (
-        get_stream_traceback_gather_kernel,
-    )
-    from thermite_tpu.ops.swg_pallas_packed import (
-        get_packed_stream_gather_kernel,
-    )
-
-    lib = _lib()
-    rng = np.random.default_rng(11)
-    WIDE, NARROW, N, SMAX = 60, 15, 32, 384
-    text, words, lw, reads, meta_w = _mk_problems(rng, N, WIDE)
-    meta_n = meta_w.copy()
-    np.minimum(meta_n[:, 7], NARROW, out=meta_n[:, 7])
-    np.minimum(meta_n[:, 3], meta_n[:, 6] + meta_n[:, 7] + 1, out=meta_n[:, 3])
-
-    kw = get_stream_traceback_gather_kernel(8, 96, 192, 128, True, SMAX=SMAX)
-    kp = get_packed_stream_gather_kernel(8, 96, 128, SMAX, True)
-    out_w = np.asarray(kw(words, lw, reads, meta_w)).copy()
-    out_n = np.asarray(kp(words, lw, reads, meta_n)).copy()
-
-    bad_n = np.flatnonzero(out_n[:, 3] < 0)
-    assert len(bad_n) > 0
-    _patch(lib, text, reads, meta_w, out_n, bad_n, SMAX)
-    bad_w = np.flatnonzero(out_w[:, 3] < 0)
-    _patch(lib, text, reads, meta_w, out_w, bad_w, SMAX)
-    assert (out_n == out_w).all()
-
-
 def test_batch_aligner_narrow_parity(tmp_path_factory):
-    """Full pipeline (native + pallas interpret) with the narrow-band
+    """Full pipeline (native + stream route) with the narrow-band
     pass on vs off: identical alignments."""
     from fixtures import READS, write_fixture
-    from thermite_tpu.align.batch import BatchAligner
-    from thermite_tpu.align.driver import AlignOpts
-    from thermite_tpu.index.build import Index
+    from thermite.align.batch import BatchAligner
+    from thermite.align.driver import AlignOpts
+    from thermite.index.build import Index
 
     _lib()
     ref, gtf, _ = write_fixture(tmp_path_factory.mktemp("nb"))
     index = Index.create_from_files(ref, gtf)
     reads = [seq.encode() for _, seq in READS]
     opts = AlignOpts(min_seed_len=3, min_aln_score=0, intron_mode=True)
-    a_wide = BatchAligner(index, opts, backend="pallas", interpret=True)
+    a_wide = BatchAligner(index, opts, backend="stream")
     a_wide.narrow_band = 0
-    a_narrow = BatchAligner(index, opts, backend="pallas", interpret=True)
+    a_narrow = BatchAligner(index, opts, backend="stream")
     a_narrow.narrow_band = 4
     r_w = a_wide.align_batch(reads)
     r_n = a_narrow.align_batch(reads)
@@ -272,9 +249,9 @@ def test_threaded_build_identity(tmp_path_factory):
     import os
 
     from fixtures import READS, write_fixture
-    from thermite_tpu.align.batch import BatchAligner
-    from thermite_tpu.align.driver import AlignOpts
-    from thermite_tpu.index.build import Index
+    from thermite.align.batch import BatchAligner
+    from thermite.align.driver import AlignOpts
+    from thermite.index.build import Index
 
     _lib()
     ref, gtf, _ = write_fixture(tmp_path_factory.mktemp("thr"))

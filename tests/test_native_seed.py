@@ -4,8 +4,8 @@ engine (and hence to the brute-force SMEM definition)."""
 import numpy as np
 import pytest
 
-from thermite_tpu.seed import native
-from thermite_tpu.seed.smem import SmemEngine
+from thermite.seed import native
+from thermite.seed.smem import SmemEngine
 
 pytestmark = pytest.mark.skipif(
     not native.available(), reason="native library unavailable"
@@ -37,14 +37,11 @@ def test_matches_numpy_random():
             assert got == want, f"trial={trial} k={k} read={read!r}"
 
 
-def test_matches_numpy_chrm():
-    from thermite_tpu.index.build import Index
-    from thermite_tpu.io.fastx import revcomp
+def test_matches_numpy_chrm(tmp_path):
+    from fixtures import small_genome_index
+    from thermite.io.fastx import revcomp
 
-    idx = Index.create_from_files(
-        "/root/reference/data/GRCh38-2020-A-chrM.fasta",
-        "/root/reference/data/GRCh38-2020-A-chrM.gtf",
-    )
+    idx = small_genome_index(tmp_path)
     nat = native.NativeSmemEngine(idx.seq_arr, 20)
     ref = SmemEngine(idx.seq_arr, 20)
     rng = np.random.default_rng(5)
@@ -118,14 +115,11 @@ def test_interleaved_chunk_seed_identity(tmp_path):
     fallback) and repeat-heavy reads."""
     import os
 
-    from thermite_tpu.align.batch import BatchAligner
-    from thermite_tpu.align.driver import AlignOpts
-    from thermite_tpu.index.build import Index
+    from fixtures import small_genome_index
+    from thermite.align.batch import BatchAligner
+    from thermite.align.driver import AlignOpts
 
-    idx = Index.create_from_files(
-        "/root/reference/data/GRCh38-2020-A-chrM.fasta",
-        "/root/reference/data/GRCh38-2020-A-chrM.gtf",
-    )
+    idx = small_genome_index(tmp_path)
     opts = AlignOpts(
         min_seed_len=20, min_aln_score_percent=0.0, min_aln_score=30,
         intron_mode=True,
@@ -178,8 +172,8 @@ def test_wide_key_radix_buckets():
     occurrence landed in a shadowed duplicate bucket)."""
     import numpy as np
 
-    from thermite_tpu.seed.native import NativeSmemEngine
-    from thermite_tpu.seed.smem import SmemEngine
+    from thermite.seed.native import NativeSmemEngine
+    from thermite.seed.smem import SmemEngine
 
     def kmer_of(key):  # base-5 -> ACGTN string of length 20
         s = []
@@ -209,8 +203,8 @@ def test_persisted_seed_table_roundtrip(tmp_path):
     is output-identical to a fresh build (and a k mismatch rebuilds)."""
     import numpy as np
 
-    from thermite_tpu.index.build import Index
-    from thermite_tpu.seed.native import make_seeder
+    from thermite.index.build import Index
+    from thermite.seed.native import make_seeder
 
     from fixtures import write_fixture
 
@@ -246,7 +240,7 @@ def test_packed_build_matches_pair_build(monkeypatch):
     and N-containing texts."""
     import numpy as np
 
-    from thermite_tpu.seed.native import NativeSmemEngine
+    from thermite.seed.native import NativeSmemEngine
 
     rng = np.random.default_rng(7)
     alpha = np.frombuffer(b"ACGTN", np.uint8)
@@ -276,12 +270,12 @@ def test_packed_mode_search_and_roundtrip(monkeypatch, tmp_path):
     unpack fallback, and the Index .npz artifact."""
     import numpy as np
 
-    from thermite_tpu.seed.native import (
+    from thermite.seed.native import (
         NativeSmemEngine,
         PackedSeedTable,
         _unpack_packed_table,
     )
-    from thermite_tpu.seed.smem import SmemEngine
+    from thermite.seed.smem import SmemEngine
 
     rng = np.random.default_rng(29)
     alpha = np.frombuffer(b"ACGTN", np.uint8)
@@ -308,7 +302,7 @@ def test_packed_mode_search_and_roundtrip(monkeypatch, tmp_path):
     monkeypatch.setenv("THERMITE_PACKED_MIN", "1")
     from tests.fixtures import write_fixture
 
-    from thermite_tpu.index.build import Index
+    from thermite.index.build import Index
 
     fasta, gtf, _ = write_fixture(tmp_path)
     idx = Index.create_from_files(fasta, gtf)
@@ -325,7 +319,7 @@ def test_packed_mode_search_and_roundtrip(monkeypatch, tmp_path):
     assert idx2.seed_table.pfx is not None
     assert (np.asarray(idx2.seed_table.pfx)
             == np.asarray(idx.seed_table.pfx)).all()
-    from thermite_tpu.seed.native import make_seeder
+    from thermite.seed.native import make_seeder
 
     monkeypatch.setenv("THERMITE_PACKED_MIN", "999999999999")
     fresh = make_seeder(idx2.seq_arr, 20)
@@ -342,7 +336,7 @@ def test_mmap_artifact_load_identity(tmp_path):
 
     from tests.fixtures import write_fixture
 
-    from thermite_tpu.index.build import Index
+    from thermite.index.build import Index
 
     fasta, gtf, _ = write_fixture(tmp_path)
     idx = Index.create_from_files(fasta, gtf)
@@ -358,7 +352,7 @@ def test_mmap_artifact_load_identity(tmp_path):
     assert a.seq[7] == b.seq[7] and isinstance(a.seq[7], int)
     for x, y in zip(a.seed_table[1:], b.seed_table[1:]):
         assert (np.asarray(x) == np.asarray(y)).all()
-    from thermite_tpu.seed.native import make_seeder
+    from thermite.seed.native import make_seeder
 
     read = b.seq[10:100]
     sa = make_seeder(a.seq_arr, 20, table=a.seed_table).all_smems(read)
@@ -374,9 +368,9 @@ def test_artifact_ref_text_reused_by_aligner(tmp_path):
 
     from tests.fixtures import write_fixture
 
-    from thermite_tpu.align.batch import BatchAligner
-    from thermite_tpu.align.driver import AlignOpts
-    from thermite_tpu.index.build import Index
+    from thermite.align.batch import BatchAligner
+    from thermite.align.driver import AlignOpts
+    from thermite.index.build import Index
 
     fasta, gtf, _ = write_fixture(tmp_path)
     idx = Index.create_from_files(fasta, gtf)
@@ -394,7 +388,7 @@ def test_artifact_ref_text_reused_by_aligner(tmp_path):
     ba = BatchAligner(idx2, opts, backend="xla")
     assert np.shares_memory(ba._ref_text_host, idx2.ref_text_arr)
     # the artifact's packed device text must equal a fresh pack
-    from thermite_tpu.ops.swg_pallas import pack_text_nib_host
+    from thermite.ops.layout import pack_text_nib_host
 
     assert idx2.text_nib_arr is not None
     assert np.array_equal(
@@ -410,16 +404,16 @@ def test_artifact_ref_text_reused_by_aligner(tmp_path):
 
 
 def test_acgtn_guard_and_saved_scan(tmp_path):
-    """The pallas nibble-safety guard still fires for dirty texts, and
+    """The stream route's nibble-safety guard still fires for dirty texts, and
     a clean artifact's save-time scan spares the aligner's own pass."""
     import numpy as np
     import pytest
 
     from tests.fixtures import write_fixture
 
-    from thermite_tpu.align.batch import BatchAligner
-    from thermite_tpu.align.driver import AlignOpts
-    from thermite_tpu.index.build import Index
+    from thermite.align.batch import BatchAligner
+    from thermite.align.driver import AlignOpts
+    from thermite.index.build import Index
 
     fasta, gtf, _ = write_fixture(tmp_path)
     idx = Index.create_from_files(fasta, gtf)
@@ -431,15 +425,15 @@ def test_acgtn_guard_and_saved_scan(tmp_path):
         min_seed_len=3, min_aln_score_percent=0.0, min_aln_score=0,
         intron_mode=True,
     )
-    BatchAligner(idx2, opts, backend="pallas", interpret=True)  # no raise
+    BatchAligner(idx2, opts, backend="stream")  # no raise
 
-    # a dirty text must still be refused by the pallas path
+    # a dirty text must still be refused by the stream route
     dirty = tmp_path / "dirty.fasta"
     dirty.write_text(">c1\n" + "ACGTR" * 40 + "\n")
     idx3 = Index.create_from_files(str(dirty), gtf)
     assert not getattr(idx3, "text_acgtn_ok", False)
     with pytest.raises(NotImplementedError, match="non-ACGTN"):
-        BatchAligner(idx3, opts, backend="pallas", interpret=True)
+        BatchAligner(idx3, opts, backend="stream")
 
 
 def test_export_views_match_copies():
@@ -448,7 +442,7 @@ def test_export_views_match_copies():
     export, read-only, and stay valid while the engine lives."""
     import numpy as np
 
-    from thermite_tpu.seed.native import NativeSmemEngine
+    from thermite.seed.native import NativeSmemEngine
 
     rng = np.random.default_rng(11)
     arr = rng.choice(np.frombuffer(b"ACGT", np.uint8), 4000)
@@ -467,8 +461,8 @@ def test_strided_table_parity_and_recall():
     >= k + stride - 1 is still found (the sampling guarantee)."""
     import numpy as np
 
-    from thermite_tpu.seed.native import NativeSmemEngine
-    from thermite_tpu.seed.smem import SmemEngine
+    from thermite.seed.native import NativeSmemEngine
+    from thermite.seed.smem import SmemEngine
 
     rng = np.random.default_rng(42)
     arr = rng.choice(np.frombuffer(b"ACGT", np.uint8), 6000)
@@ -499,7 +493,7 @@ def test_warm_mmap_roundtrip(monkeypatch, tmp_path):
     error and is a no-op on eagerly-loaded indexes."""
     from tests.fixtures import write_fixture
 
-    from thermite_tpu.index.build import Index
+    from thermite.index.build import Index
 
     ref, gtf, _ = write_fixture(tmp_path)
     idx = Index.create_from_files(ref, gtf)
@@ -515,7 +509,7 @@ def test_warm_mmap_roundtrip(monkeypatch, tmp_path):
     art2 = str(tmp_path / "warm_packed.npz")
     idx2.save(art2)
     packed = Index.load(art2)
-    from thermite_tpu.seed.native import PackedSeedTable
+    from thermite.seed.native import PackedSeedTable
 
     assert isinstance(packed.seed_table, PackedSeedTable)
     assert packed.warm_mmap() >= 0.0
@@ -532,10 +526,10 @@ def test_prep_reads_and_nib_pack_native(tmp_path):
     pack_reads_nib_host bit for bit."""
     from tests.fixtures import write_fixture
 
-    from thermite_tpu.align.batch import BatchAligner
-    from thermite_tpu.align.driver import AlignOpts
-    from thermite_tpu.index.build import Index
-    from thermite_tpu.ops.swg_pallas import pack_reads_nib_host
+    from thermite.align.batch import BatchAligner
+    from thermite.align.driver import AlignOpts
+    from thermite.index.build import Index
+    from thermite.ops.layout import pack_reads_nib_host
 
     fasta, gtf, _ = write_fixture(tmp_path)
     idx = Index.create_from_files(fasta, gtf)

@@ -6,8 +6,8 @@ field values, same op expansion."""
 import numpy as np
 import pytest
 
-from thermite_tpu.align import objbuild
-from thermite_tpu.align.types import (
+from thermite.align import objbuild
+from thermite.align.types import (
     EXONIC,
     INTERGENIC,
     INTRONIC,
@@ -189,9 +189,9 @@ def test_pipeline_ab_vs_python_loop(tmp_path, monkeypatch):
         pytest.skip("native object builder unavailable")
     from fixtures import write_fixture
 
-    from thermite_tpu.align.batch import BatchAligner
-    from thermite_tpu.align.driver import AlignOpts
-    from thermite_tpu.index.build import Index
+    from thermite.align.batch import BatchAligner
+    from thermite.align.driver import AlignOpts
+    from thermite.index.build import Index
 
     ref, gtf, _ = write_fixture(tmp_path)
     idx = Index.create_from_files(ref, gtf)
@@ -203,11 +203,11 @@ def test_pipeline_ab_vs_python_loop(tmp_path, monkeypatch):
         b"ATTACAG", b"ACTCTCAG", b"ATTGACTTAAC", b"ATTTTAAC",
         b"ATTGTCTTAAC", b"GTTAAGTCAA", b"ATTACA", b"TGGCTAGCTA",
     ]
-    b1 = BatchAligner(idx, opts, backend="pallas", interpret=True)
+    b1 = BatchAligner(idx, opts, backend="stream")
     if b1.native is None:
         pytest.skip("native engine unavailable")
     out_c = b1.align_batch(reads)
-    b2 = BatchAligner(idx, opts, backend="pallas", interpret=True)
+    b2 = BatchAligner(idx, opts, backend="stream")
     monkeypatch.setattr(objbuild, "build", lambda *a, **k: None)
     out_py = b2.align_batch(reads)
     assert sum(len(o) for o in out_c) > 0

@@ -6,8 +6,8 @@ CLI surface."""
 import numpy as np
 import pytest
 
-from thermite_tpu.align.driver import AlignOpts, OracleAligner
-from thermite_tpu.align.paired import (
+from thermite.align.driver import AlignOpts, OracleAligner
+from thermite.align.paired import (
     FLAG_MATE_REVERSE,
     FLAG_MATE_UNMAPPED,
     FLAG_PAIRED,
@@ -19,9 +19,9 @@ from thermite_tpu.align.paired import (
     iter_read_pairs,
     pair_records,
 )
-from thermite_tpu.index.build import Index
-from thermite_tpu.io.fastx import revcomp
-from thermite_tpu.testing.synth import write_synth_genome
+from thermite.index.build import Index
+from thermite.io.fastx import revcomp
+from thermite.testing.synth import write_synth_genome
 
 
 class Rec:
@@ -142,7 +142,7 @@ def test_both_unmapped(index, opts):
 
 
 def test_batch_engine_parity_through_pairing(index, opts):
-    from thermite_tpu.align.batch import BatchAligner
+    from thermite.align.batch import BatchAligner
 
     aligner = OracleAligner(index, opts)
     batch = BatchAligner(index, opts)
@@ -195,7 +195,7 @@ def test_cli_paired_e2e(index, opts, tmp_path):
     write_fq(r1, 0)
     write_fq(r2, 1)
 
-    from thermite_tpu import cli
+    from thermite import cli
 
     art = d / "pr.npz"
     assert cli.main(["index", fasta, gtf, "-o", str(art)]) == 0
@@ -218,7 +218,7 @@ def test_cli_paired_e2e(index, opts, tmp_path):
     # BAM round trip: mate fields survive the binary encode/decode
     out_bam = d / "p.bam"
     assert cli.main(base + ["-o", str(out_bam), "--engine", "oracle"]) == 0
-    from thermite_tpu.io.bam import read_bam
+    from thermite.io.bam import read_bam
 
     _, ref_names, it = read_bam(str(out_bam))
     sam_rows = [ln.split("\t") for ln in lines]
@@ -239,7 +239,7 @@ def test_cli_paired_e2e(index, opts, tmp_path):
 
 
 def test_paired_rejects_bad_usage(index, tmp_path):
-    from thermite_tpu import cli
+    from thermite import cli
 
     with pytest.raises(SystemExit):
         cli.main(["align", "x.npz", "a.fq", "-o", "o.sam", "-a", "--paired"])
@@ -248,8 +248,8 @@ def test_paired_rejects_bad_usage(index, tmp_path):
 def test_paired_shard_merge_identical(index, tmp_path):
     """--paired with --num-hosts: pair-sharded host outputs merge to
     the exact bytes of the unsharded run (both SAM and BAM)."""
-    from thermite_tpu import cli
-    from thermite_tpu.parallel.multihost import merge_shards
+    from thermite import cli
+    from thermite.parallel.multihost import merge_shards
 
     d = tmp_path
     fasta, gtf = write_synth_genome(str(d), 60_000, seed=41, basename="pr")
@@ -389,7 +389,7 @@ def test_mate_rescue_orientation_symmetry(index, opts):
 
 def test_cli_no_mate_rescue_flag(index, opts, tmp_path):
     """--no-mate-rescue leaves the lost mate unmapped; default rescues."""
-    from thermite_tpu import cli
+    from thermite import cli
 
     d = tmp_path
     fasta, gtf = write_synth_genome(str(d), 60_000, seed=41, basename="pr")

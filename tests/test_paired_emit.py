@@ -6,21 +6,21 @@ csrc thermite_chunk_pair and serializes records with the C++ emitter;
 pairs needing mate rescue are spliced in from the Python writers.  The
 referee recomputes every record with align/paired.py pair_records (the
 oracle semantics) over the SAME batch-engine alignments and serializes
-with the Python writers.  Runs the pallas pipeline in interpret mode
-on CPU so the exact production path is exercised without a TPU.
+with the Python writers.  Runs the stream route (plain-XLA kernel)
+on CPU so the exact production path is exercised without a GPU.
 """
 
 import numpy as np
 import pytest
 
-from thermite_tpu.align.batch import BatchAligner
-from thermite_tpu.align.driver import AlignOpts
-from thermite_tpu.align.paired import pair_records
-from thermite_tpu.index.build import Index
-from thermite_tpu.io.bam import encode_bam_record
-from thermite_tpu.io.fastx import revcomp
-from thermite_tpu.io.sam import unique_refs
-from thermite_tpu.testing.synth import write_synth_genome
+from thermite.align.batch import BatchAligner
+from thermite.align.driver import AlignOpts
+from thermite.align.paired import pair_records
+from thermite.index.build import Index
+from thermite.io.bam import encode_bam_record
+from thermite.io.fastx import revcomp
+from thermite.io.sam import unique_refs
+from thermite.testing.synth import write_synth_genome
 
 
 class Rec:
@@ -83,7 +83,7 @@ def _expected_bytes(index, opts, pairs, fmt_bam, rescue):
     """Independent referee: batch-engine alignments (same results the
     emit path sees, by the existing parity tests) -> pair_records ->
     Python writers."""
-    batch = BatchAligner(index, opts, backend="pallas", interpret=True)
+    batch = BatchAligner(index, opts, backend="stream")
     seqs = []
     for r1, r2 in pairs:
         seqs.append(r1.seq)
@@ -107,7 +107,7 @@ def _expected_bytes(index, opts, pairs, fmt_bam, rescue):
 @pytest.mark.parametrize("rescue", [True, False])
 def test_paired_emit_matches_python(index, opts, fmt_bam, rescue):
     pairs = make_mixed_pairs(index)
-    emitter = BatchAligner(index, opts, backend="pallas", interpret=True)
+    emitter = BatchAligner(index, opts, backend="stream")
     if not emitter.can_emit():
         pytest.skip("native engine unavailable")
     raw = emitter.align_paired_emit(
@@ -130,7 +130,7 @@ def test_paired_emit_chunk_boundary(index, opts):
     cuts land inside the batch, and verify pairs never split (output
     equals the referee's, which never chunks)."""
     pairs = make_mixed_pairs(index, n=16, seed=29)
-    emitter = BatchAligner(index, opts, backend="pallas", interpret=True)
+    emitter = BatchAligner(index, opts, backend="stream")
     if not emitter.can_emit():
         pytest.skip("native engine unavailable")
     emitter.PROBLEM_BUDGET = 7  # a few reads per chunk, odd on purpose
@@ -165,7 +165,7 @@ def test_cpp_engine_paired_matches(index, opts):
     """--engine cpp paired output == the batch/Python referee bytes
     (same composition: C++ pairing + emit, oracle-recomputed rescue
     splices)."""
-    from thermite_tpu.align.cpu import CppAligner
+    from thermite.align.cpu import CppAligner
 
     pairs = make_mixed_pairs(index, n=18, seed=3)
     try:
@@ -184,7 +184,7 @@ def test_cpp_engine_paired_matches(index, opts):
 def test_wrapper_paired_records(index, opts, tmp_path):
     """align_read_pairs_records == per-pair align_read_pair objects
     serialized with the Python writer (tags stripped both sides)."""
-    from thermite_tpu.wrapper import ThermiteAligner
+    from thermite.wrapper import ThermiteAligner
 
     idxp = str(tmp_path / "w.npz")
     index.save(idxp)
@@ -228,7 +228,7 @@ def test_cross_chromosome_mates(opts, tmp_path):
             (Rec(b"x%d" % i, c1[p1 : p1 + 90]),
              Rec(b"x%d" % i, revcomp(c2[p2 : p2 + 90])))
         )
-    emitter = BatchAligner(idx, opts, backend="pallas", interpret=True)
+    emitter = BatchAligner(idx, opts, backend="stream")
     if not emitter.can_emit():
         pytest.skip("native engine unavailable")
     for fmt_bam in (False, True):
@@ -256,20 +256,19 @@ def test_cross_chromosome_mates(opts, tmp_path):
 def test_paired_cli_uses_emit_path(index, opts, tmp_path, monkeypatch):
     """align_paired_from_files routes through align_paired_emit and
     produces the same bytes as the object path (THERMITE_NO_EMIT)."""
-    from thermite_tpu.align.paired import align_paired_from_files
-    from thermite_tpu.testing.synth import write_fastq
+    from thermite.align.paired import align_paired_from_files
+    from thermite.testing.synth import write_fastq
 
-    # the CPU default backend is xla (can_emit False); force the
-    # production pallas+native configuration through the driver
+    # pin the production stream-route configuration through
+    # align_paired_from_files
     orig = BatchAligner
 
     def patched(index_, opts_, **kw):
-        kw.setdefault("backend", "pallas")
-        kw.setdefault("interpret", True)
+        kw.setdefault("backend", "stream")
         return orig(index_, opts_, **kw)
 
     monkeypatch.setattr(
-        "thermite_tpu.align.batch.BatchAligner", patched
+        "thermite.align.batch.BatchAligner", patched
     )
 
     pairs = make_mixed_pairs(index, n=10, seed=5)

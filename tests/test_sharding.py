@@ -3,7 +3,7 @@
 import numpy as np
 import jax
 
-from thermite_tpu.parallel.mesh import dp_align_step, make_mesh
+from thermite.parallel.mesh import dp_align_step, make_mesh
 
 
 def test_eight_device_mesh_forward():
@@ -47,15 +47,15 @@ def test_graft_entry():
 def test_dp_gather_align_step_matches_unsharded():
     """Production layout (replicated text, sharded offset problems,
     on-device gather) must match the single-device gather kernel."""
-    from thermite_tpu.ops.swg_batch import get_swg_gather_kernel
-    from thermite_tpu.parallel.mesh import dp_gather_align_step, make_mesh
+    from thermite.ops.swg_batch import get_swg_gather_kernel
+    from thermite.parallel.mesh import dp_gather_align_step, make_mesh
 
     rng = np.random.default_rng(3)
     ref_text = rng.integers(65, 69, 2048).astype(np.uint8)
     B, RPAD = 16, 32
     reads = np.zeros((B, RPAD), np.uint8)
     meta = np.zeros((2 * B, 9), np.int32)
-    from thermite_tpu.ops.swg_pallas import meta_row
+    from thermite.ops.layout import meta_row
 
     for i in range(B):
         p = int(rng.integers(4, len(ref_text) - RPAD - 4))

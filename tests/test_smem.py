@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from thermite_tpu.seed.smem import SmemEngine, all_smems_brute
+from thermite.seed.smem import SmemEngine, all_smems_brute
 
 
 def _arr(seq: bytes) -> np.ndarray:

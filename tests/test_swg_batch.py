@@ -8,9 +8,9 @@ per-pair band diversity inside one batch.
 import numpy as np
 import pytest
 
-from thermite_tpu.ops.swg_batch import get_swg_kernel
-from thermite_tpu.ops.swg_ref import SwgExtend
-from thermite_tpu.ops.traceback import traceback_batch
+from thermite.ops.swg_batch import get_swg_kernel
+from thermite.ops.swg_ref import SwgExtend
+from thermite.ops.traceback import traceback_batch
 
 
 def run_batch(pairs, W=None, XMAX=None, YMAX=None):

@@ -5,8 +5,8 @@ expected alignments (reference src/swg.rs:250-317); they transfer
 verbatim because scoring is identical unit scoring.
 """
 
-from thermite_tpu.align.types import Alignment, xclip
-from thermite_tpu.ops.swg_ref import SwgExtend
+from thermite.align.types import Alignment, xclip
+from thermite.ops.swg_ref import SwgExtend
 
 M, S, I, D = "M", "S", "I", "D"
 

@@ -13,14 +13,14 @@ import sys
 import numpy as np
 import pytest
 
-from thermite_tpu.align.driver import AlignOpts
-from thermite_tpu.align.run import FORMAT_BAM, align_reads_from_file
-from thermite_tpu.index.build import Index
-from thermite_tpu.testing.alignment_metrics import (
+from thermite.align.driver import AlignOpts
+from thermite.align.run import FORMAT_BAM, align_reads_from_file
+from thermite.index.build import Index
+from thermite.testing.alignment_metrics import (
     truth_compare,
     truth_to_markdown,
 )
-from thermite_tpu.testing.synth import (
+from thermite.testing.synth import (
     make_truth_reads,
     write_fastq,
     write_synth_genome,
@@ -62,7 +62,7 @@ def test_truth_metrics_high_accuracy(truth_bam):
 
 def test_truth_cli(truth_bam):
     out = subprocess.run(
-        [sys.executable, "-m", "thermite_tpu.testing.alignment_metrics",
+        [sys.executable, "-m", "thermite.testing.alignment_metrics",
          "--truth", truth_bam],
         capture_output=True, text=True, check=True,
     ).stdout
@@ -71,6 +71,6 @@ def test_truth_cli(truth_bam):
 
 def test_truth_rejects_unencoded_names():
     with pytest.raises(SystemExit):
-        from thermite_tpu.testing.alignment_metrics import _parse_truth
+        from thermite.testing.alignment_metrics import _parse_truth
 
         _parse_truth("synth0")

@@ -1,8 +1,8 @@
 """Transcriptome lifting tests — the reference's expected values
 (reference src/txome.rs:168-341) carried over verbatim."""
 
-from thermite_tpu.align.types import Alignment, Mem, yclip
-from thermite_tpu.index.txome import Exon, IntervalTable, Tx, lift_mem_to_tx, lift_tx_to_gx
+from thermite.align.types import Alignment, Mem, yclip
+from thermite.index.txome import Exon, IntervalTable, Tx, lift_mem_to_tx, lift_tx_to_gx
 
 M, S, I, D = "M", "S", "I", "D"
 

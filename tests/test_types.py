@@ -6,7 +6,7 @@ relies on (writers, parity comparisons, driver op reversal) must match
 the eagerly expanded list exactly.
 """
 
-from thermite_tpu.align.types import Alignment, RunOps, runs_to_ops, xclip, yclip
+from thermite.align.types import Alignment, RunOps, runs_to_ops, xclip, yclip
 
 
 def _r(op, ln):

@@ -7,9 +7,9 @@ import pytest
 
 from fixtures import READS, write_fixture
 
-from thermite_tpu.align.batch import BatchAligner, _serialize_records
-from thermite_tpu.index.build import Index
-from thermite_tpu.wrapper import ThermiteAligner
+from thermite.align.batch import BatchAligner, _serialize_records
+from thermite.index.build import Index
+from thermite.wrapper import ThermiteAligner
 
 
 @pytest.fixture(scope="module")
@@ -46,11 +46,11 @@ def _mk(index_path):
 @pytest.mark.parametrize("fmt_bam", [False, True])
 def test_wrapper_records_match_object_path(index_path, recs, fmt_bam):
     w = _mk(index_path)
-    # production emit surface (C++): force the full TPU pipeline shape
-    # on CPU via pallas interpret mode
-    from thermite_tpu.align.batch import BatchAligner as BA
+    # production emit surface (C++): the full device pipeline shape
+    # on CPU via the plain-XLA stream kernel
+    from thermite.align.batch import BatchAligner as BA
 
-    w._batch = BA(w.index, w.align_opts, backend="pallas", interpret=True)
+    w._batch = BA(w.index, w.align_opts, backend="stream")
     names = [r[0] for r in recs]
     reads = [r[1] for r in recs]
     quals = [r[2] for r in recs]
@@ -62,8 +62,8 @@ def test_wrapper_records_match_object_path(index_path, recs, fmt_bam):
     for recs_list in w2.align_reads(names, reads, quals):
         results.append(recs_list)
     # serialize the object-path records directly
-    from thermite_tpu.io.bam import encode_bam_record
-    from thermite_tpu.io.sam import unique_refs
+    from thermite.io.bam import encode_bam_record
+    from thermite.io.sam import unique_refs
 
     ref_ids = {n: i for i, (n, _) in enumerate(unique_refs(w2.index))}
     want = b"".join(
@@ -77,9 +77,9 @@ def test_wrapper_records_match_object_path(index_path, recs, fmt_bam):
 
 def test_wrapper_records_strip_tags(index_path, recs):
     w = _mk(index_path)
-    from thermite_tpu.align.batch import BatchAligner as BA
+    from thermite.align.batch import BatchAligner as BA
 
-    w._batch = BA(w.index, w.align_opts, backend="pallas", interpret=True)
+    w._batch = BA(w.index, w.align_opts, backend="stream")
     sam = w.align_reads_records(
         [r[0] for r in recs], [r[1] for r in recs], [r[2] for r in recs]
     )
@@ -93,13 +93,13 @@ def test_wrapper_records_strip_tags(index_path, recs):
 def test_wrapper_align_read_pair(index_path):
     """Paired embedding surface: pair flags present, tags stripped,
     and per-mate alignments identical to the single-end path."""
-    from thermite_tpu.align.paired import (
+    from thermite.align.paired import (
         FLAG_PAIRED,
         FLAG_PROPER,
         FLAG_READ1,
         FLAG_READ2,
     )
-    from thermite_tpu.io.fastx import revcomp
+    from thermite.io.fastx import revcomp
 
     w = _mk(index_path)
     ref = w.index.refs[0]

@@ -21,9 +21,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 def main():
     n = int(sys.argv[1]) if len(sys.argv) > 1 else 8192
     from bench import OUT_DIR, SYN_BP, make_reads
-    from thermite_tpu.align.batch import BatchAligner
-    from thermite_tpu.align.driver import AlignOpts
-    from thermite_tpu.index.build import Index
+    from thermite.align.batch import BatchAligner
+    from thermite.align.driver import AlignOpts
+    from thermite.index.build import Index
 
     art = (
         sys.argv[2]
@@ -37,14 +37,14 @@ def main():
         min_seed_len=20, min_aln_score_percent=0.0, min_aln_score=30,
         intron_mode=True,
     )
-    # "pallas" here only names the backend the aligner WOULD dispatch
+    # "stream" here only names the route the aligner WOULD dispatch
     # to; this tool exercises just the host stages (seed, chunk build)
     # and never touches a device — required for >2 GiB texts where the
-    # xla fallback is guarded off
-    be = "pallas" if len(sys.argv) > 2 else "xla"
+    # xla test path is guarded off
+    be = "stream" if len(sys.argv) > 2 else "xla"
     ba = BatchAligner(idx, opts, backend=be, use_native=True)
     if len(sys.argv) > 2:
-        from thermite_tpu.testing.synth import make_truth_reads
+        from thermite.testing.synth import make_truth_reads
 
         reads = [r[1] for r in make_truth_reads(idx, n, seed=77)]
     else:

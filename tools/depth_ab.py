@@ -31,10 +31,11 @@ def main():
     n = int(sys.argv[1]) if len(sys.argv) > 1 else 49152
     trials = int(sys.argv[2]) if len(sys.argv) > 2 else 5
 
-    from bench import _syn45_index, make_reads
-    from thermite_tpu.align.batch import BatchAligner
-    from thermite_tpu.align.driver import AlignOpts
-    from thermite_tpu.index.build import Index
+    from bench import OUT_DIR, _syn45_index, make_reads
+    from thermite.testing.synth import write_small_genome
+    from thermite.align.batch import BatchAligner
+    from thermite.align.driver import AlignOpts
+    from thermite.index.build import Index
 
     opts = AlignOpts(
         min_seed_len=20, min_aln_score_percent=0.0, min_aln_score=30,
@@ -44,10 +45,7 @@ def main():
         ("syn45", _syn45_index()),
         (
             "chrM",
-            Index.create_from_files(
-                "/root/reference/data/GRCh38-2020-A-chrM.fasta",
-                "/root/reference/data/GRCh38-2020-A-chrM.gtf",
-            ),
+            Index.create_from_files(*write_small_genome(OUT_DIR)),
         ),
     ]:
         chrom = idx.seq[idx.refs[0].start_idx : idx.refs[0].end_idx - 1]

@@ -1,14 +1,13 @@
-"""Adversarial TPU-vs-oracle parity fuzz.
+"""Adversarial device-vs-oracle parity fuzz.
 
 Aligns thousands of heavily mutated, mixed-length reads (substitutions,
 indels, N bases, both strands, 40-150 bp) through the production batch
 pipeline on the REAL device and compares every alignment to the
 sequential CPU oracle.  This is the deepest end-to-end check the repo
-has — it found the long-read VMEM sizing bug the fixed-shape bench
-could not (see docs/DESIGN.md).
+has.
 
 Usage:
-  python tools/fuzz_parity.py [N_READS] [SEED]          # chrM
+  python tools/fuzz_parity.py [N_READS] [SEED]          # chrM stand-in
   python tools/fuzz_parity.py [N_READS] [SEED] --long   # 40-150 bp mix
 """
 
@@ -18,10 +17,10 @@ import numpy as np
 
 sys.path.insert(0, __file__.rsplit("/", 2)[0])
 
-from thermite_tpu.align.batch import BatchAligner  # noqa: E402
-from thermite_tpu.align.driver import AlignOpts, OracleAligner  # noqa: E402
-from thermite_tpu.index.build import Index  # noqa: E402
-from thermite_tpu.io.fastx import revcomp  # noqa: E402
+from thermite.align.batch import BatchAligner  # noqa: E402
+from thermite.align.driver import AlignOpts, OracleAligner  # noqa: E402
+from thermite.index.build import Index  # noqa: E402
+from thermite.io.fastx import revcomp  # noqa: E402
 
 
 def mutate(rng, r, n_max=8, allow_indels=True):
@@ -51,10 +50,12 @@ def main():
         if a.startswith("--pct="):
             pct = float(a.split("=", 1)[1])
 
-    idx = Index.create_from_files(
-        "/root/reference/data/GRCh38-2020-A-chrM.fasta",
-        "/root/reference/data/GRCh38-2020-A-chrM.gtf",
-    )
+    import tempfile
+
+    from thermite.testing.synth import write_small_genome
+
+    with tempfile.TemporaryDirectory() as d:
+        idx = Index.create_from_files(*write_small_genome(d))
     chrM = idx.seq[idx.refs[0].start_idx : idx.refs[0].end_idx - 1]
     rng = np.random.default_rng(seed)
     reads = []

@@ -6,7 +6,7 @@ fwd+rc text) is the Cell Ranger production target but its blobs are
 git-LFS-elided, so this tool synthesizes a GRCh38-scale genome
 (multi-chromosome, spliced genes, chr21-like density), indexes it with
 a stride-sampled seed table (STAR-sparse-SA-style; see
-csrc thermite_seed_index_new_stride), aligns reads on the real TPU
+csrc thermite_seed_index_new_stride), aligns reads on the GPU
 through the nibble-packed resident-text pipeline, spot-checks
 byte-parity vs the sequential CPU oracle, scores ground-truth
 accuracy, and prints one JSON line with the measured numbers.
@@ -32,10 +32,10 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from thermite_tpu.align.batch import BatchAligner  # noqa: E402
-from thermite_tpu.align.driver import AlignOpts, OracleAligner  # noqa: E402
-from thermite_tpu.index.build import Index  # noqa: E402
-from thermite_tpu.testing.synth import (  # noqa: E402
+from thermite.align.batch import BatchAligner  # noqa: E402
+from thermite.align.driver import AlignOpts, OracleAligner  # noqa: E402
+from thermite.index.build import Index  # noqa: E402
+from thermite.testing.synth import (  # noqa: E402
     make_truth_reads,
     write_synth_genome,
 )

@@ -24,9 +24,9 @@ def main():
     sort = sys.argv[2] if len(sys.argv) > 2 else "tottime"
 
     from bench import OUT_DIR, _syn45_index, make_reads
-    from thermite_tpu.align.batch import BatchAligner
-    from thermite_tpu.align.driver import AlignOpts
-    from thermite_tpu.index.build import Index
+    from thermite.align.batch import BatchAligner
+    from thermite.align.driver import AlignOpts
+    from thermite.index.build import Index
 
     opts = AlignOpts(
         min_seed_len=20, min_aln_score_percent=0.0, min_aln_score=30,
@@ -36,10 +36,9 @@ def main():
         idx = _syn45_index()
         chrom = idx.seq[idx.refs[0].start_idx : idx.refs[0].end_idx - 1]
     else:
-        idx = Index.create_from_files(
-            "/root/reference/data/GRCh38-2020-A-chrM.fasta",
-            "/root/reference/data/GRCh38-2020-A-chrM.gtf",
-        )
+        from thermite.testing.synth import write_small_genome
+
+        idx = Index.create_from_files(*write_small_genome(OUT_DIR))
         chrom = idx.seq[idx.refs[0].start_idx : idx.refs[0].end_idx - 1]
 
     batch = BatchAligner(idx, opts)

@@ -1,4 +1,4 @@
-"""Host-only seeding microbenchmark (no TPU needed).
+"""Host-only seeding microbenchmark (no accelerator needed).
 
 Times ``thermite_smems`` (the chunk build's seed phase) over synthetic
 reads against an artifact-loaded index — the access pattern whose
@@ -25,8 +25,8 @@ def main():
     passes = int(sys.argv[3]) if len(sys.argv) > 3 else 3
 
     from bench import make_reads
-    from thermite_tpu.index.build import Index
-    from thermite_tpu.seed.native import make_seeder
+    from thermite.index.build import Index
+    from thermite.seed.native import make_seeder
 
     t0 = time.time()
     idx = Index.load(art)

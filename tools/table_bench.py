@@ -29,7 +29,7 @@ def main():
     if "--pair" in sys.argv:
         os.environ["THERMITE_TABLE_PAIR"] = "1"
 
-    from thermite_tpu.seed.native import NativeSmemEngine, available
+    from thermite.seed.native import NativeSmemEngine, available
 
     assert available(), "native library unavailable"
     n = int(mbp * 1e6)

@@ -1,15 +1,15 @@
 """Per-thread CPU accounting for the on-device pipeline.
 
-The bench stage timers attribute wall time to pipeline stages, but on
-this 1-core host the JAX/IFRT runtime threads compete with the host
-build for the same core, and the "build" stage absorbs that contention
-(docs/ROUND3.md item 1b).  This tool measures the tax directly: it
+The bench stage timers attribute wall time to pipeline stages, but the
+JAX runtime threads compete with the host build for cores, and the
+"build" stage absorbs that contention.  This tool measures the tax
+directly: it
 snapshots /proc/self/task/*/stat utime+stime around a warmed
 align_batch_emit run and prints each thread's CPU seconds, so the
 "device-poll contention" hypothesis rests on thread-level evidence
 instead of stage-timer inference.
 
-Usage (TPU):  python tools/thread_tax.py [n_reads]
+Usage (GPU machine):  python tools/thread_tax.py [n_reads]
 """
 
 import os
@@ -42,18 +42,18 @@ def main():
     n_reads = int(sys.argv[1]) if len(sys.argv) > 1 else 49152
 
     import bench as B
-    from thermite_tpu.cli import _enable_compile_cache
+    from thermite.cli import enable_compile_cache
 
-    _enable_compile_cache()
+    enable_compile_cache()
     index = B._syn45_index()
     chrom = index.seq[index.refs[0].start_idx : index.refs[0].end_idx - 1]
     reads = B.make_reads(chrom, n_reads, seed=23)
-    from thermite_tpu.align.batch import BatchAligner
-    from thermite_tpu.align.driver import AlignOpts
+    from thermite.align.batch import BatchAligner
+    from thermite.align.driver import AlignOpts
 
     opts = AlignOpts(min_seed_len=20, min_aln_score_percent=0.0,
                      min_aln_score=30, intron_mode=True)
-    ba = BatchAligner(index, opts, backend="pallas", use_native=True)
+    ba = BatchAligner(index, opts)
     recs = [(b"r%d" % i, r, b"I" * len(r)) for i, r in enumerate(reads)]
     # warm at FULL size: compiles, sticky shape buckets, mmap faults,
     # and the pipeline-depth auto-decision all settle on pass 1
